@@ -1,6 +1,6 @@
-"""raytracing_test_tpu — a TPU-native differentiable sparse-voxel raytracing framework.
+"""raytracing_test_tpu — a differentiable sparse-voxel raytracing framework.
 
-A from-scratch JAX/XLA/Pallas re-expression of the capabilities of the reference
+A from-scratch JAX/XLA re-expression of the capabilities of the reference
 C++/OpenGL engine (reedthorngag/raytracing_test):
 
 - sparse 64-ary voxel world ("tetrahexa tree") with multi-resolution leaves and
@@ -14,16 +14,15 @@ C++/OpenGL engine (reedthorngag/raytracing_test):
   src/input.cpp)
 
 plus, new for this framework: differentiability w.r.t. voxel densities/albedos and
-camera pose, Pallas TPU kernels for the hot ray-march, and multi-chip/multi-host
-execution via jax.sharding meshes (ray/tile sharding, spatial world sharding,
-gradient psum).
+camera pose, and multi-device execution via jax.sharding meshes (ray/tile
+sharding, spatial world sharding, gradient psum).
 
 Layer map (see COMPONENTS.md for the reference-parity matrix):
     core/      voxel types, color packing, the host-side sparse tree, flattening
     worldgen/  seed-exact OpenSimplex noise + the 3-octave terrain recipe
     oracle/    numpy CPU reference renderer — the correctness oracle
     render/    pure-JAX vectorized renderer (forward + differentiable volumetric)
-    ops/       Pallas TPU kernels + low-level bit ops (morton)
+    ops/       low-level ops (dedup scatter VJP, one-hot lookups, morton)
     parallel/  device meshes, ray/tile sharding, spatial world sharding
     app/       CLI driver, interactive edit loop, inverse-rendering fit, ckpt
     native/    C++ runtime (tree/allocator/worldgen) with ctypes bindings

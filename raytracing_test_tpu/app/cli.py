@@ -124,7 +124,7 @@ def cmd_fit(args) -> None:
     s = _mk_session(args)
     fcfg = FitConfig(
         views=args.views, steps=args.steps, lr=args.lr, resolution=args.fit_res,
-        guided=args.guided, engine=args.engine, shading=args.shading,
+        guided=args.guided, shading=args.shading,
     )
     params, losses = fitmod.fit_world(
         s.scene, s.grid.shape, fcfg, ckpt_path=args.ckpt, batch=args.batch
@@ -174,8 +174,7 @@ def main(argv=None) -> None:
         "--mode",
         default="fast",
         choices=[
-            "fast", "fused", "bricks", "bricks-pallas", "reference",
-            "progressive", "pallas", "spatial", "handoff",
+            "fast", "bricks", "reference", "progressive", "spatial", "handoff",
         ],
         help="render path (see app/session.py render)",
     )
@@ -204,11 +203,6 @@ def main(argv=None) -> None:
         help="surface-guided sampling with occupancy re-thresholding",
     )
     f.add_argument(
-        "--engine", default="", choices=["", "fused"],
-        help="training engine: '' = XLA steps, 'fused' = the Pallas engine "
-        "pair (fused march seed + fused window render/accumulate)",
-    )
-    f.add_argument(
         "--shading", action="store_true",
         help="fit face-shaded targets (matches the hard renderer's output)",
     )
@@ -223,14 +217,16 @@ def main(argv=None) -> None:
     p.add_argument(
         "--platform",
         default=os.environ.get("RTT_PLATFORM", ""),
-        help="force a jax platform (e.g. cpu); the JAX_PLATFORMS env var alone "
-        "does not override a preinstalled plugin platform",
+        help="force a jax platform (e.g. cpu) instead of the default device",
     )
     args = p.parse_args(argv)
-    if args.platform:
-        import jax
+    import jax
 
+    if args.platform:
         jax.config.update("jax_platforms", args.platform)
+    from ..utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     set_debug_level(args.debug_level)
     args.fn(args)
 

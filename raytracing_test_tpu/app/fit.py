@@ -46,10 +46,11 @@ def make_targets(scene, cams: List[Camera], res: int):
     """Ground-truth views via the fast hard renderer (no shadows — the
     volumetric model has no shadow term)."""
     rcfg = RenderConfig(width=res, height=res, enable_shadows=False)
+    render = jax.jit(lambda sc, pos, d: fast.render_rays_fast(sc, pos, d, rcfg)[0])
     origins, dirs, rgbs = [], [], []
     for cam in cams:
         d = ray_directions(cam, res, res)
-        col, _ = fast.render_rays_fast(scene, cam.pos, d, rcfg)
+        col = render(scene, cam.pos, d)
         origins.append(jnp.broadcast_to(cam.pos[None, :], d.shape))
         dirs.append(d)
         rgbs.append(col)
@@ -58,6 +59,15 @@ def make_targets(scene, cams: List[Camera], res: int):
         jnp.concatenate(dirs),
         jnp.concatenate(rgbs),
     )
+
+
+def fit_targets(scene, grid_shape, fcfg: FitConfig):
+    """(origins, dirs, targets) of every target ray: ``fcfg.views`` ring
+    cameras around the grid window at ``fcfg.resolution``."""
+    Sx, Sy, Sz = grid_shape
+    center = (Sx / 2, Sy / 3, Sz / 2)
+    cams = ring_cameras(center, radius=0.8 * Sx, height=0.9 * Sy, n=fcfg.views)
+    return make_targets(scene, cams, fcfg.resolution)
 
 
 def fit_world(
@@ -75,21 +85,14 @@ def fit_world(
     rs = meshlib.rays_sharding(mesh)
     rep = meshlib.replicated(mesh)
 
-    Sx, Sy, Sz = grid_shape
-    center = (Sx / 2, Sy / 3, Sz / 2)
-    cams = ring_cameras(center, radius=0.8 * Sx, height=0.9 * Sy, n=fcfg.views)
-    origins, dirs, targets = make_targets(scene, cams, fcfg.resolution)
+    origins, dirs, targets = fit_targets(scene, grid_shape, fcfg)
     N = origins.shape[0]
     debug(1, f"fit: {fcfg.views} views, {N} target rays")
 
     params = jax.device_put(shardlib.init_params(grid_shape), rep)
     optimizer = optax.adam(fcfg.lr)
     opt_state = jax.device_put(optimizer.init(params), rep)
-    fused = fcfg.engine == "fused"
-    step_fn = None
-    if fused:
-        pass  # built lazily at the first re-threshold (needs a guide)
-    elif fcfg.guided:
+    if fcfg.guided:
         step_fn = shardlib.make_train_step_guided(
             mesh, optimizer, num_steps=fcfg.guided_steps,
             shading=fcfg.shading,
@@ -97,45 +100,24 @@ def fit_world(
     else:
         step_fn = shardlib.make_train_step(mesh, optimizer, num_steps=96)
     guide = None
-    tables = None
 
     rng = np.random.default_rng(seed)
     # batch must divide evenly over devices
     ndev = mesh.devices.size
     batch = (batch // ndev) * ndev
     losses = []
-    rethresh = fcfg.guided or fused
     for step in range(fcfg.steps):
-        if rethresh and (guide is None or step % fcfg.rethreshold_every == 0):
+        if fcfg.guided and (guide is None or step % fcfg.rethreshold_every == 0):
             # occupancy re-thresholding: rebuild the guide from the current
             # density so guided sampling tracks the evolving field
             guide = jax.device_put(
                 shardlib.guide_scene_from_params(params, tau=fcfg.guide_tau), rep
             )
-            if fused:
-                from ..kernels import fused_march as fmk
-
-                tables = fmk.tables_for_scene(guide)
-                if step_fn is None:
-                    # the fused dp step (shard_map + Pallas engine pair);
-                    # later guides pass through as traced arrays
-                    step_fn = shardlib.make_train_step_fused(
-                        mesh, optimizer, guide, tables,
-                        num_steps=fcfg.guided_steps, shading=fcfg.shading,
-                    )
         idx = rng.integers(0, N, batch)
         o = jax.device_put(origins[idx], rs)
         d = jax.device_put(dirs[idx], rs)
         t = jax.device_put(targets[idx], rs)
-        if fused:
-            params, opt_state, loss, aux = step_fn(
-                params, opt_state, o, d, t, guide=guide, tables=tables)
-            if bool(aux["grads_dropped"]):
-                debug(0, f"fit step {step}: escape budget exceeded "
-                         f"({int(aux['n_escaped'])} escaped rays) — field "
-                         "gradients dropped for the overflow; raise "
-                         "escape_div headroom or re-threshold more often")
-        elif fcfg.guided:
+        if fcfg.guided:
             params, opt_state, loss = step_fn(params, opt_state, guide, o, d, t)
         else:
             params, opt_state, loss = step_fn(params, opt_state, o, d, t)

@@ -47,9 +47,6 @@ class WorldSession:
         self.palette = Palette()
         self.hotbar = _hotbar()
         self.selected = 0
-        self._fused_tables = None  # built lazily for mode="fused"
-        self._fused_dirty = True  # edits invalidate the fused-kernel tables
-        self._fused_warned = False  # one-time fused->fast fallback warning
         self._native = None
         if use_native:
             try:
@@ -195,7 +192,6 @@ class WorldSession:
                         )
         self._clear_dirty()
         self.scene = self._mirror.apply_bricks(in_window, old_counts)
-        self._fused_dirty = True  # fused-kernel tables rebuild on next use
         return len(bricks)
 
     # --------------------------------------------------------------- render
@@ -210,18 +206,10 @@ class WorldSession:
         """One frame, mirroring the reference render() flow: sync dirty state,
         pick for the looked-at highlight, then draw (main.cpp:68-108).
 
-        ``mode`` selects the render path: fast (default), fused (the
-        single-invocation Pallas march kernel — the performance engine),
-        reference, progressive (coarse-to-fine, the reference's C11 scheme),
-        bricks / bricks-pallas (the round-2 split kernels), spatial / handoff
+        ``mode`` selects the render path: fast (default), reference (the
+        semantics anchor), progressive (coarse-to-fine, the reference's C11
+        scheme), bricks (the brick-hierarchical XLA march), spatial / handoff
         (the world sharded over all devices' space axis).
-
-        mode="fused" falls back to fast (with a one-time warning) when the
-        scene violates the fused-table constraints (core/fused_tables.py:
-        dims % 8, material ids <= 13) — e.g. after edits intern a 14th
-        palette entry. AO note: ``enable_ao`` is served by the XLA shading
-        stage for every mode (the fused kernel's outputs feed the shared
-        renderer.shade, so AO works in fused mode too).
         """
         self.sync()
         if highlight:
@@ -233,45 +221,10 @@ class WorldSession:
         cam = self.camera()
         if mode == "fast":
             return np.asarray(fast.render_fast_jit(self.scene, cam, rcfg))
-        if mode == "fused":
-            import jax
-
-            from ..kernels import fused_march as _fm
-
-            if self._fused_tables is None or self._fused_dirty:
-                try:
-                    self._fused_tables = _fm.tables_for_scene(self.scene)
-                except ValueError as e:
-                    # the documented fused-table contract (core/fused_tables.py:
-                    # dims % 8, material ids <= 13) — honor the fallback instead
-                    # of surfacing a ValueError from a render call (e.g. after
-                    # an edit interns a 14th palette entry)
-                    if not self._fused_warned:
-                        debug(1, f"fused tables unavailable ({e}); "
-                                 "falling back to mode='fast'")
-                        self._fused_warned = True
-                    self._fused_tables = None
-                self._fused_dirty = False
-            if self._fused_tables is None:
-                return np.asarray(fast.render_fast_jit(self.scene, cam, rcfg))
-            img = jax.jit(
-                lambda sc, c, t: _fm.render_image_fused(
-                    sc, self._fused_tables, c, rcfg, time_s=t)
-            )(self.scene, cam, np.float32(rcfg.time))
-            return np.asarray(img)
         if mode == "bricks":
             from ..render import bricks as _bricks
 
             return np.asarray(_bricks.render_bricks_jit(self.scene, cam, rcfg))
-        if mode == "bricks-pallas":
-            import jax
-
-            from ..kernels import brick_kernels as _bk
-
-            img = jax.jit(
-                lambda sc, c, t: _bk.render_image_bricks_pallas(sc, c, rcfg, time_s=t)
-            )(self.scene, cam, np.float32(rcfg.time))
-            return np.asarray(img)
         if mode == "reference":
             return np.asarray(renderer.render_jit(self.scene, cam, rcfg))
         if mode == "progressive":

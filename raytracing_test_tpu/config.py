@@ -66,7 +66,6 @@ class RenderConfig:
     looking_at: Tuple[int, int, int] = (-(1 << 30),) * 3  # disabled sentinel
     mouse_px: Tuple[float, float] = (-1e9, -1e9)
     crosshair: bool = False
-    dtype: str = "float32"
 
 
 @dataclass(frozen=True)
@@ -83,11 +82,6 @@ class FitConfig:
     rethreshold_every: int = 50
     guide_tau: float = 1.0
     guided_steps: int = 24  # volumetric window length when guided
-    # training engine: "" = the annotation-sharded XLA steps (guided flag
-    # picks windowed vs blind), "fused" = the Pallas engine pair (fused
-    # march seeds + fused window renders/accumulates — the headline step,
-    # parallel/sharding.make_train_step_fused)
-    engine: str = ""
     shading: bool = False  # fit face-shaded targets (the hard renderer's
     # output IS face-shaded; shading=True matches the volumetric model to it)
 

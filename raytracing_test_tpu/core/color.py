@@ -7,7 +7,7 @@ Reference parity:
   - unpacking: color_int_to_vec3 (src/shaders/low_res.frag:137-147):
         float = chan21 / 2^21      (note: divides by RANGE, not MASK)
 
-TPU note: we avoid u64 on device entirely. The packed u64 exists only on the host
+Device note: we avoid u64 on device entirely. The packed u64 exists only on the host
 (python ints / numpy uint64) for tree storage and parity tests; device arrays carry
 unpacked float32 albedo (see core/flatten.py). ``u64_to_unit_f32`` defines the
 canonical float albedo a packed color maps to — identical to what the reference's

@@ -2,17 +2,17 @@
 
 The reference mirrors its pointer-free node pools into GPU SSBOs with per-slab
 dirty tracking (voxel_allocator.hpp:38-78) and the shader walks the tree per
-pixel per step (low_res.frag:493-532). That per-ray pointer-chasing descent is
-the worst possible shape for a TPU's vector units, so the device structure here
-is gather-friendly instead:
+pixel per step (low_res.frag:493-532). Here the march runs as [N]-lane
+vectorized XLA programs, where per-ray pointer chasing is the worst possible
+shape, so the device structure is gather-friendly instead:
 
   - ``mat``: dense uint8 material-id grid over a window of the 1024^3 address
     space (0 = air). One dynamic gather per ray per DDA step.
   - palette arrays (``albedo`` f32[P,3], ``flags`` i32[P], ``metadata`` f32[P]):
     tiny tables, gathered only when resolving hits.
   - ``macro``: occupancy of 4^3 cells (uint8), the analog of the reference
-    tree's branch bitmaps (empty-space skip, low_res.frag:520-524), small enough
-    to live in VMEM for the Pallas kernel and used for hierarchical DDA skips.
+    tree's branch bitmaps (empty-space skip, low_res.frag:520-524), used for
+    hierarchical DDA skips.
 
 Semantic equivalence: the dense grid is exactly the rasterization of the sparse
 tree over the window (multi-res leaves expand to their covered voxels); lookups
@@ -70,12 +70,12 @@ class Scene(NamedTuple):
     # to the nearest solid cell (capped), licensing a radius-(d-1) jump box.
     # ONE gather yields both the material and the empty-space skip license.
     y_max: jax.Array  # i32 scalar: max solid y + 1
-    # ---- brick hierarchy (render/bricks.py + kernels/brick_kernels.py).
-    # The march's hot structure: marching happens at 4^3-brick granularity with
-    # an MXU one-hot distance lookup (no gather), dropping to per-voxel steps
-    # only inside occupied bricks whose 64-byte material rows are row-gathered
-    # on entry. Fields default to None on paths that don't render with bricks
-    # (spatially-sharded slabs build their own local Scenes).
+    # ---- brick hierarchy (render/bricks.py): marching at 4^3-brick
+    # granularity with a one-hot matmul distance lookup (no gather), dropping
+    # to per-voxel steps only inside occupied bricks whose 64-byte material
+    # rows are row-gathered on entry. Fields default to None on paths that
+    # don't render with bricks (spatially-sharded slabs build their own local
+    # Scenes).
     brick_mat: Optional[jax.Array] = None  # u8 [NB, bs^3] per-brick voxel rows,
     # vox index (dx*bs + dy)*bs + dz, brick lin (bx*By + by)*Bz + bz
     brick_dist: Optional[jax.Array] = None  # u8 [Bx, By, Bz] exact Chebyshev

@@ -1,9 +1,9 @@
 """Incremental device mirroring — the dirty-slab protocol, done right.
 
 The reference re-uploads only dirty 4 MiB slabs per frame (glBufferSubData,
-voxel_allocator.hpp:38-78). Round 1's analog rebuilt the WHOLE derived scene
-per edit (O(world log world) host work + full re-upload — VERDICT weak #3).
-This module makes the per-edit sync cost independent of world size:
+voxel_allocator.hpp:38-78). A full rebuild of the derived scene per edit
+costs O(world log world) host work plus a full re-upload. This module makes
+the per-edit sync cost independent of world size:
 
   - the authoritative dense grid lives on the host (the session already owns
     it); edits arrive as dirty 8^3 bricks;

@@ -2,7 +2,7 @@
 
 Re-expression of the reference's pointer-based tree + slab allocator
 (src/voxel_data/tetrahexa_tree.cpp, src/voxel_data/voxel_allocator.cpp) as
-index-based numpy pools. Design decisions, TPU-first:
+index-based numpy pools. Design decisions, device-first:
 
   - Nodes are u32 indices into growable pools (the reference is also index-based —
     its u32 node indices make the structure GPU-relocatable,

@@ -1,4 +1,4 @@
-// voxel_runtime — native host runtime for the TPU voxel framework.
+// voxel_runtime — native host runtime for the voxel framework.
 //
 // C++ re-expression of the reference's host-side hot path: the sparse 64-ary
 // "tetrahexa" tree with its index-based slab allocator

@@ -1,13 +1,11 @@
-"""MXU-based table lookups: turning gathers into matmuls.
+"""One-hot matmul table lookups: turning gathers into matmuls.
 
-XLA's TPU gather is scalar-latency bound (~1e8 lookups/s measured on v5e, flat
-in table size) — fatal for a per-step voxel lookup. For tables that fit a
-64x64 factorization (<= 4096 entries), a lookup can instead be expressed as two
-one-hot contractions that run on the MXU/VPU at ~8e8+ lookups/s:
+For tables that fit a 64x64 factorization (<= 4096 entries), a lookup can be
+expressed as two one-hot contractions instead of a gather:
 
     idx = hi*64 + lo
-    M1  = onehot(hi) @ table.reshape(64, 64*C)      (MXU, bf16 x bf16 -> f32)
-    out = sum_j onehot(lo)[:, j] * M1[:, j, :]      (VPU select-reduce)
+    M1  = onehot(hi) @ table.reshape(64, 64*C)      (matmul, bf16 x bf16 -> f32)
+    out = sum_j onehot(lo)[:, j] * M1[:, j, :]      (select-reduce)
 
 Exactness: table values are split into bytes (0..255), which bf16 represents
 exactly; one-hot products and f32 accumulation are then exact, so u32 words
@@ -56,9 +54,8 @@ def mxu_word_lookup(table_bytes: jax.Array, idx: jax.Array) -> jax.Array:
     m1 = jax.lax.dot_general(
         oh_hi, tab, (((1,), (0,)), ((), ())), preferred_element_type=jnp.bfloat16
     ).reshape(-1, A, 4)
-    # select the lo row: broadcast one-hot multiply + reduce (VPU). NOT an
-    # einsum — 'nj,njb->nb' lowers to N tiny batched matvecs, which is
-    # catastrophically scalar on TPU.
+    # select the lo row: broadcast one-hot multiply + reduce. NOT an
+    # einsum — 'nj,njb->nb' lowers to N tiny batched matvecs.
     oh_lo = (lo[:, None] == ar[None, :]).astype(jnp.bfloat16)
     bytes_ = (m1 * oh_lo[:, :, None]).sum(axis=1)
     b = bytes_.astype(jnp.int32)
@@ -67,16 +64,16 @@ def mxu_word_lookup(table_bytes: jax.Array, idx: jax.Array) -> jax.Array:
 
 def byte_table_decomp(n_bytes: int):
     """(A, B) power-of-two factorization for an n-byte one-hot lookup table:
-    A = one-hot width (MXU contraction dim), B = row width (VPU select dim).
+    A = one-hot width (matmul contraction dim), B = row width (select dim).
     MAC cost per lookup is A*B = W regardless of split; B is capped at 512 to
     bound the VPU select and the (N, B) intermediate."""
     W = 1 << int(np.ceil(np.log2(max(n_bytes, 1))))
     W = max(W, 4096)
     # balanced split: the (N, A) one-hot and (N, B) row intermediates are the
-    # VMEM/bandwidth cost in kernels — keep both <= 256
+    # bandwidth cost — keep both <= 256
     B = min(256, W)
     A = W // B
-    while A < 64 and B > 1:  # keep the matmul contraction MXU-sized
+    while A < 64 and B > 1:  # keep the matmul contraction >= 64 wide
         A *= 2
         B //= 2
     return A, B

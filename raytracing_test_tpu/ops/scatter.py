@@ -1,17 +1,15 @@
-"""Deduplicated scatter-add — the gather whose BACKWARD beats XLA's scatter.
+"""Deduplicated scatter-add — a gather whose BACKWARD collapses duplicates.
 
-XLA's TPU scatter-add is index-serialized: ~110 ms per 1M f32[4] rows on v5e,
-insensitive to sorted/unique hints and linear in row count (measured; see
-CLAUDE.md). The differentiable renderer's backward is a scatter per scan step,
-so this is the headline wall. But its updates are highly duplicated: at 1024²
-over a 256-world, ~8-16 rays cross each surface voxel per step. Sorting is
-cheap on TPU (~24 ms for 1M keys + 4 payloads), so the VJP here:
+The differentiable renderer's backward is a scatter-add of per-ray rows into
+the field, and its updates are highly duplicated: at 1024² over a 256-world,
+~8-16 rays cross each surface voxel per step. This VJP (the ``accum="dedup"``
+engine of render/diff.py; ``accum="scatter"`` is XLA's plain scatter-add):
 
-    sort updates by cell id              (vector unit, cheap)
-    prefix-sum payloads                  (vector unit, cheap)
+    sort updates by cell id
+    prefix-sum payloads
     run ends -> per-cell totals          (prefix difference)
     compact run ends to K = N/8 slots    (bounded nonzero)
-    scatter K unique rows                (~8x fewer serialized rows)
+    scatter K unique rows                (~8x fewer scattered rows)
 
 with a `lax.cond` fallback to the plain full-width scatter when a batch
 really has more than K unique cells — always correct, fast in the common

@@ -1,6 +1,6 @@
 """CPU oracle renderer: scalar, obviously-correct transcription of the render
 semantics (src/shaders/low_res.frag), used as the allclose target for the JAX
-and Pallas device paths.
+device paths.
 
 Deliberately written as straight-line per-ray Python/numpy-scalar code — slow,
 independent of the vectorized implementation, and easy to audit against the

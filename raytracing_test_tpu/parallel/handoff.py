@@ -312,11 +312,15 @@ def _shadow_handoff(scene_slab, shape3, slab_w, n_space, p, cell, last_axis, cfg
     return active & (s.mat != 0)
 
 
+@functools.lru_cache(maxsize=16)
+def _render_handoff_jit(cfg: RenderConfig, mesh: Mesh):
+    # one executable per (config, mesh): repeated frames must not retrace
+    return jax.jit(lambda sc, pos, d: render_rays_handoff(sc, pos, d, cfg, mesh))
+
+
 def render_image_handoff(scene: Scene, camera: Camera, cfg: RenderConfig, mesh: Mesh):
     dirs = ray_directions(camera, cfg.width, cfg.height, cfg.fov_degrees)
     rs = NamedSharding(mesh, P(DATA_AXIS, None))
     dirs = jax.device_put(dirs, rs)
-    col = jax.jit(
-        lambda sc, pos, d: render_rays_handoff(sc, pos, d, cfg, mesh)
-    )(scene, camera.pos, dirs)
+    col = _render_handoff_jit(cfg, mesh)(scene, camera.pos, dirs)
     return np.asarray(col).reshape(cfg.height, cfg.width, 3)

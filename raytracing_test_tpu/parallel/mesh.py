@@ -2,7 +2,7 @@
 
 The reference is single-process/single-GPU; its only device channel is the
 host->GPU SSBO upload (voxel_allocator.hpp:38-78). The multi-device story here
-is built on jax.sharding over ICI/DCN instead:
+is built on jax.sharding over the cards of one host:
 
   axis "data"  — rays/pixels/views sharded (the renderer analog of DP); voxel
                  parameter gradients are psum'ed over it.
@@ -10,9 +10,9 @@ is built on jax.sharding over ICI/DCN instead:
                  TP/SP for the scene); rays cross shard boundaries via
                  collective exchange (parallel/spatial.py).
 
-Meshes come from jax.make_mesh, so the same code runs on a TPU slice, a
-multi-host pod (after jax.distributed.initialize), or a CPU-virtual-device test
-mesh (xla_force_host_platform_device_count).
+The same code runs on the GPUs of one host (joined all to all, so the mesh
+shape follows the algorithm alone) or on a CPU-virtual-device test mesh
+(xla_force_host_platform_device_count).
 """
 
 from __future__ import annotations
@@ -51,11 +51,3 @@ def rays_sharding(mesh: Mesh) -> NamedSharding:
 def space_sharding(mesh: Mesh, rank: int = 3) -> NamedSharding:
     """Shard a voxel field's x axis over the space axis."""
     return NamedSharding(mesh, P(SPACE_AXIS, *([None] * (rank - 1))))
-
-
-def initialize_multihost(coordinator: Optional[str] = None) -> None:
-    """Multi-host bring-up (call once per process on a pod slice)."""
-    kwargs = {}
-    if coordinator:
-        kwargs["coordinator_address"] = coordinator
-    jax.distributed.initialize(**kwargs)

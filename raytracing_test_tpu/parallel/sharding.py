@@ -3,7 +3,7 @@
 The renderer is embarrassingly parallel over rays, so the forward path shards
 the pixel axis over the mesh's "data" axis with the scene replicated — the
 analog of DP. For training (inverse rendering), rays+targets are sharded and
-the voxel-field gradients are all-reduced: the psum over ICI is inserted by XLA
+the voxel-field gradients are all-reduced: the psum is inserted by XLA
 from the sharding annotations (scene replicated in, replicated grads out), per
 the standard jax.sharding recipe. Spatial world sharding (the "space" axis)
 lives in parallel/spatial.py.
@@ -149,105 +149,6 @@ def make_train_step_guided(
         updates, opt_state = optimizer.update(grads, opt_state, params)
         params = optax.apply_updates(params, updates)
         return params, opt_state, loss
-
-    return train_step
-
-
-def make_train_step_fused(
-    mesh: Mesh, optimizer, guide_scene: Scene, guide_tables,
-    num_steps: int = 24, interpret=None, overflow: str = "compact",
-    shading: bool = False, shadow_steps: int = 0, escape_div: int = 16,
-):
-    """Data-parallel training step on the FUSED engines (VERDICT r03 item 5):
-    per shard, the fused march kernel seeds the guided window
-    (kernels/fused_march) and the fused window kernel pair renders and
-    accumulates field gradients in VMEM (kernels/fused_window); the
-    per-shard field gradients are then psum'ed over the data axis.
-
-    A Pallas call is a custom call XLA cannot partition, so the dp
-    collectives are spelled explicitly with ``shard_map`` + ``lax.pmean``
-    instead of sharding annotations — the explicit-collectives twin of
-    make_train_step_guided.
-
-    r05: the guide (occupancy Scene + fused-march tables) is passed to the
-    STEP as traced arrays, so fit-time occupancy re-thresholding swaps
-    guides WITHOUT rebuilding the step (a retrace happens only when table
-    shapes change); ``guide_tables`` at construction supplies the static
-    fields (air0/bgrid/shape3) and the default guide. The step returns
-    (params, opt_state, loss, aux) with aux = {n_escaped, grads_dropped}
-    reduced over shards — escapes past the compact budget silently drop
-    field gradients (kernels/fused_window.py), so the overflow MUST be
-    observable at the training loop (VERDICT r04 weak #2).
-    """
-    import functools as _ft
-
-    from jax import shard_map
-    from jax.sharding import PartitionSpec as _P
-
-    from ..kernels import fused_march as _fm
-    from ..kernels import fused_window as _fw
-    from .mesh import DATA_AXIS
-
-    tmpl = guide_tables
-
-    def loss_local(params, guide, tabs, origins, dirs, targets):
-        ft = tmpl._replace(meta=tabs[0], mask=tabs[1], multi=tabs[2])
-        ds = params_to_scene(params)
-        n_loc = dirs.shape[0]
-        cfg = RenderConfig(width=1, height=n_loc, enable_materials=False,
-                           enable_shadows=False)
-        _, aux = _fm.render_rays_fused(
-            guide, ft, origins, dirs, cfg, interpret=interpret)
-        o = origins if origins.ndim == 2 else origins[None, :]
-        t_hit = jnp.linalg.norm(aux["hit_pos"] - o, axis=1)
-        seed = jax.lax.stop_gradient(
-            jnp.where(aux["hit"], jnp.maximum(t_hit - 3.0, 0.0), 1e6))
-        rgb, waux = _fw.render_window_fused(
-            ds, origins, dirs, num_steps=num_steps, sky=False, start_t=seed,
-            interpret=interpret, overflow=overflow, escape_div=escape_div,
-            shading=shading, shadow_steps=shadow_steps, return_aux=True)
-        loss = jnp.mean((rgb - targets) ** 2)
-        return loss, (waux["n_escaped"],
-                      waux["grads_dropped"].astype(jnp.int32))
-
-    @_ft.partial(
-        shard_map,
-        mesh=mesh,
-        in_specs=(_P(), _P(), _P(), _P(DATA_AXIS, None),
-                  _P(DATA_AXIS, None), _P(DATA_AXIS, None)),
-        out_specs=(_P(), _P(), _P(), _P()),
-        check_vma=False,
-    )
-    def _loss_grads(params, guide, tabs, origins, dirs, targets):
-        (loss, (nesc, dropped)), g = jax.value_and_grad(
-            loss_local, has_aux=True)(params, guide, tabs, origins, dirs,
-                                      targets)
-        return (
-            jax.lax.pmean(loss, DATA_AXIS),
-            jax.tree_util.tree_map(lambda x: jax.lax.pmean(x, DATA_AXIS), g),
-            jax.lax.psum(nesc, DATA_AXIS),
-            jax.lax.pmax(dropped, DATA_AXIS),
-        )
-
-    @jax.jit
-    def _step(params, opt_state, guide, tabs, origins, dirs, targets):
-        loss, grads, nesc, dropped = _loss_grads(
-            params, guide, tabs, origins, dirs, targets)
-        updates, opt_state = optimizer.update(grads, opt_state, params)
-        params = optax.apply_updates(params, updates)
-        return params, opt_state, loss, nesc, dropped
-
-    def train_step(params, opt_state, origins, dirs, targets,
-                   guide=None, tables=None):
-        g = guide_scene if guide is None else guide
-        t = tmpl if tables is None else tables
-        assert (t.air0, t.bgrid, t.shape3) == (
-            tmpl.air0, tmpl.bgrid, tmpl.shape3), "guide static fields changed"
-        tabs = tuple(jnp.asarray(x) for x in (t.meta, t.mask, t.multi))
-        params, opt_state, loss, nesc, dropped = _step(
-            params, opt_state, g, tabs, origins, dirs, targets)
-        return params, opt_state, loss, {
-            "n_escaped": nesc, "grads_dropped": dropped != 0}
 
     return train_step
 

@@ -11,8 +11,8 @@ assembles the true material id. Rays remain sharded over the "data" axis, so
 the two parallelism forms compose: dp = rays/pixels, sp = world extent.
 
 This is the halo-free formulation — communication is one small [N] psum per
-DDA step over ICI, and marching work is duplicated across the space axis. It
-trades compute (cheap, VPU) for world memory (the scarce resource config 5 is
+DDA step, and marching work is duplicated across the space axis. It
+trades compute for world memory (the scarce resource config 5 is
 about). A segment-handoff formulation (each slab marches only its resident
 rays, exchanging boundary-crossing rays via ppermute) is the follow-up
 optimization; the collective-lookup version is the semantics anchor it will be
@@ -122,11 +122,15 @@ def render_rays_spatial(
     return _render(scene, jnp.asarray(origin, jnp.float32), jnp.asarray(dirs, jnp.float32))
 
 
+@functools.lru_cache(maxsize=16)
+def _render_spatial_jit(cfg: RenderConfig, mesh: Mesh):
+    # one executable per (config, mesh): repeated frames must not retrace
+    return jax.jit(lambda sc, pos, d: render_rays_spatial(sc, pos, d, cfg, mesh))
+
+
 def render_image_spatial(scene: Scene, camera: Camera, cfg: RenderConfig, mesh: Mesh):
     dirs = ray_directions(camera, cfg.width, cfg.height, cfg.fov_degrees)
     rs = NamedSharding(mesh, P(DATA_AXIS, None))
     dirs = jax.device_put(dirs, rs)
-    col = jax.jit(
-        lambda sc, pos, d: render_rays_spatial(sc, pos, d, cfg, mesh)
-    )(scene, camera.pos, dirs)
+    col = _render_spatial_jit(cfg, mesh)(scene, camera.pos, dirs)
     return np.asarray(col).reshape(cfg.height, cfg.width, 3)

@@ -1,14 +1,12 @@
-"""Brick-hierarchical march — round-2 performance path.
+"""Brick-hierarchical march — an alternative XLA forward engine.
 
-The fast path (render/fast.py) does ONE u8 gather per march iteration; on this
-chip XLA's per-lane gather engine tops out around 1e8 lookups/s, which floors
-any gather-per-step march near ~2e6 rays/s. This path removes the per-step
-gather entirely by marching at 4^3-BRICK granularity:
+The fast path (render/fast.py) does ONE u8 gather per march iteration. This
+path removes the per-step gather entirely by marching at 4^3-BRICK
+granularity:
 
   - **brick phase**: the per-iteration lookup is the brick-level Chebyshev
-    distance (Scene.brick_dist), fetched via an MXU one-hot matmul
-    (ops/mxu_lookup.mxu_nibble_lookup2, measured ~1.3 ms per 1M lookups —
-    ~7x cheaper than the gather) from a table small enough to live in VMEM.
+    distance (Scene.brick_dist), fetched via a one-hot matmul
+    (ops/mxu_lookup.mxu_nibble_lookup2) from a small table.
     Air lanes bulk-advance through certified-empty brick boxes with the same
     exact AABB arithmetic as render/fast.py.
   - **fine phase**: on entering an occupied brick, the brick's voxel row
@@ -22,10 +20,8 @@ refraction / shadow semantics are IDENTICAL to render/fast.py (shared
 classify / material_step / shade helpers); parity is asserted in
 tests/test_bricks.py over the material-coverage cases.
 
-This file is the XLA twin of kernels/brick_kernels.py: the Pallas kernels
-replace the two inner while_loops one-for-one (the round structure, row
-gathers, and material glue stay in XLA), so twin-vs-kernel equivalence is
-testable loop-by-loop. Reference anchor: the march/descent of
+Its speed on the GPU against render/fast.py is not measured. Reference
+anchor: the march/descent of
 src/shaders/low_res.frag:309-315,493-532, with the tree descent re-expressed
 as distance-field jumps at brick granularity.
 """
@@ -250,24 +246,14 @@ def brick_march(
     shadow: bool = False,
     compact_fraction: int = 8,
     time_s=None,
-    fine_loop=None,
-    brick_loop=None,
-    compact_min: int = 256,
 ):
     """The full rounds-structured march with straggler compaction.
-
-    ``fine_loop`` / ``brick_loop`` override the inner engines — the Pallas
-    kernels (kernels/brick_kernels.py) plug in here; defaults are the XLA
-    twins above. ``compact_min`` floors the compaction recursion (each level
-    instantiates the whole round machinery — the kernel path uses a higher
-    floor to bound compile size). Returns (state, rounds)."""
+    Returns (state, rounds)."""
     if time_s is None:
         time_s = cfg.time
-    fine = fine_loop or _fine_loop
-    brick = brick_loop or _brick_loop
     table = scene.brick_nib_shadow if shadow else scene.brick_nib
     N = state.cell.shape[0]
-    M = max(_compact_size_static(N, compact_fraction), compact_min)
+    M = _compact_size_static(N, compact_fraction)
 
     def round_body(carry):
         s, r = carry
@@ -275,8 +261,8 @@ def brick_march(
         want = ~s.done & in_w & (d == 0)
         rows, blin = fetch_rows(scene, s.cell, want)
         blin = jnp.where(want, blin, -1)  # lanes not at an occupied brick fetch nothing
-        s = fine(scene, s, rows, blin, cfg, budget, shadow, time_s)
-        s = brick(scene, table, s, budget)
+        s = _fine_loop(scene, s, rows, blin, cfg, budget, shadow, time_s)
+        s = _brick_loop(scene, table, s, budget)
         return s, r + 1
 
     def cond_many(carry):
@@ -300,10 +286,7 @@ def brick_march(
     valid = jnp.arange(M) < count
     sub = jax.tree_util.tree_map(lambda a: a[idx], state)
     sub = sub._replace(done=sub.done | ~valid)
-    sub, r2 = brick_march(
-        scene, sub, cfg, budget, shadow, compact_fraction, time_s, fine_loop,
-        brick_loop, compact_min,
-    )
+    sub, r2 = brick_march(scene, sub, cfg, budget, shadow, compact_fraction, time_s)
     scatter_idx = jnp.where(valid, idx, N)
     state = jax.tree_util.tree_map(
         lambda full, part: full.at[scatter_idx].set(part, mode="drop"),
@@ -313,7 +296,7 @@ def brick_march(
     return state, r + r2
 
 
-def _shadow_march_bricks(scene, p, cell, last_axis, cfg, sun, active, fine_loop, brick_loop, compact_min=256):
+def _shadow_march_bricks(scene, p, cell, last_axis, cfg, sun, active):
     """Sun-shadow occlusion via the brick machinery (fast._shadow_march_fast
     semantics: exit through the hit face, one geometric first step, skip
     LIQUID, <=75 steps)."""
@@ -347,8 +330,7 @@ def _shadow_march_bricks(scene, p, cell, last_axis, cfg, sun, active, fine_loop,
         steps=s.steps + active.astype(jnp.int32),
     )
     s, _ = brick_march(
-        scene, s, cfg, jnp.asarray(cfg.shadow_steps, jnp.int32), shadow=True,
-        fine_loop=fine_loop, brick_loop=brick_loop, compact_min=compact_min,
+        scene, s, cfg, jnp.asarray(cfg.shadow_steps, jnp.int32), shadow=True
     )
     return active & (s.mat != 0)
 
@@ -360,9 +342,6 @@ def render_rays_bricks(
     cfg: RenderConfig,
     start_t=None,
     time_s=None,
-    fine_loop=None,
-    brick_loop=None,
-    compact_min: int = 256,
 ):
     """Brick-path render of arbitrary rays -> (rgb [N,3], aux). Same semantics
     and signature shape as fast.render_rays_fast."""
@@ -379,7 +358,8 @@ def render_rays_bricks(
     # starting-cell specials (frag:299-307), identical to the fast path
     from .fast import lookup_mat_flags
 
-    s = _init_state(origin, dirs, jnp.ones(N, f32), start_t=start_t)
+    s = _init_state(origin, dirs, jnp.ones(N, f32), start_t=start_t,
+                    shape3=scene.shape3)
     mat0, flags0 = lookup_mat_flags(scene, s.cell)
     refr0 = (flags0 & int(Properties.REFRACTIVE)) > 0
     raw0 = (mat0 != 0) & ~refr0
@@ -388,24 +368,20 @@ def render_rays_bricks(
 
     s, rounds = brick_march(
         scene, s, cfg, jnp.asarray(cfg.max_steps, jnp.int32), shadow=False,
-        time_s=time_s, fine_loop=fine_loop, brick_loop=brick_loop,
-        compact_min=compact_min,
+        time_s=time_s,
     )
 
     def shadow_fn(p, cell, last_axis, step, active):
-        return _shadow_march_bricks(
-            scene, p, cell, last_axis, cfg, sun, active, fine_loop, brick_loop,
-            compact_min,
-        )
+        return _shadow_march_bricks(scene, p, cell, last_axis, cfg, sun, active)
 
     col, aux = shade(scene, s, raw0, mat0, sun, cfg, shadow_fn)
     aux["march_rounds"] = rounds
     return col, aux
 
 
-def render_image_bricks(scene: Scene, camera: Camera, cfg: RenderConfig, time_s=None, **kw):
+def render_image_bricks(scene: Scene, camera: Camera, cfg: RenderConfig, time_s=None):
     dirs = ray_directions(camera, cfg.width, cfg.height, cfg.fov_degrees)
-    col, _ = render_rays_bricks(scene, camera.pos, dirs, cfg, time_s=time_s, **kw)
+    col, _ = render_rays_bricks(scene, camera.pos, dirs, cfg, time_s=time_s)
     img = col.reshape(cfg.height, cfg.width, 3)
     if cfg.crosshair:
         yy = jnp.arange(cfg.height, dtype=jnp.float32)[:, None]

@@ -1,9 +1,9 @@
 """Fast renderer — the performance path.
 
 Same semantics as render/renderer.py (which is oracle-validated), structured
-around measured TPU realities: XLA's per-lane gather costs ~0.5 ms per 262K
-lanes regardless of table, loop iterations at full width cost ~1 ms each, and
-worst-case lanes dominate a lockstep loop. Three mechanisms:
+so that each lockstep loop iteration does one gather and as few full-width
+iterations as possible run, because worst-case lanes dominate a lockstep
+loop. Three mechanisms:
 
   1. **Distance-encoded grid** (core/flatten.py Scene.grid_enc): ONE u8 gather
      per iteration returns either the cell's material (solid) or a certified
@@ -229,7 +229,7 @@ def _compact_size_static(n: int, frac: int) -> int:
     return ((m + 127) // 128) * 128
 
 
-def _init_state(origin, dirs, ior, start_t=None):
+def _init_state(origin, dirs, ior, start_t=None, shape3=None):
     N = dirs.shape[0]
     f32 = dirs.dtype
     d, step, delta, abs_delta = _build_ray(dirs)
@@ -238,8 +238,15 @@ def _init_state(origin, dirs, ior, start_t=None):
     origin = origin.astype(f32)
     if start_t is not None:
         # fast-forward along the ray (progressive refinement seeding — the
-        # mid/full_res "sourceRay" trick, mid_res.frag:219)
-        origin = origin + jnp.maximum(start_t, 0.0)[:, None] * d
+        # mid/full_res "sourceRay" trick, mid_res.frag:219), but never past
+        # the ray's exit from the grid window ``shape3``: a start cell beyond
+        # it can wrap (&1023) back into the window and alias solid terrain,
+        # while nothing past the exit is renderable
+        t1 = (0.0 - origin) * delta
+        t2 = (jnp.asarray(shape3, f32)[None, :] - origin) * delta
+        t_exit = jnp.min(jnp.maximum(t1, t2), axis=1)
+        t_start = jnp.minimum(jnp.maximum(start_t, 0.0), jnp.maximum(t_exit, 0.0) + 1e-3)
+        origin = origin + t_start[:, None] * d
     cell = jnp.floor(origin).astype(jnp.int32)
     tmax = _init_tmax(origin, cell, step, delta, abs_delta)
     return _March(
@@ -321,7 +328,8 @@ def render_rays_fast(scene: Scene, origin, dirs, cfg: RenderConfig, start_t=None
 
     # starting-cell specials (frag:299-307), evaluated at the (possibly
     # fast-forwarded) start point
-    s = _init_state(origin, dirs, jnp.ones(N, f32), start_t=start_t)
+    s = _init_state(origin, dirs, jnp.ones(N, f32), start_t=start_t,
+                    shape3=scene.shape3)
     mat0, flags0 = lookup_mat_flags(scene, s.cell)
     refr0 = (flags0 & int(Properties.REFRACTIVE)) > 0
     raw0 = (mat0 != 0) & ~refr0

@@ -9,7 +9,8 @@ fast-forwards its rays to that depth before continuing the DDA
 Here the scheme runs on the fast path: a coarse render records per-pixel hit
 parameter t (straight-line camera distance); the fine pass starts each ray at
 min over its coarse 3x3 neighborhood of (t - margin). Material-bent coarse
-pixels (reflection/refraction) seed 0 — their t is not a straight-ray depth.
+pixels (reflection/refraction, hit or miss) seed 0 — their t is not a
+straight-ray depth.
 Like the reference's version this is an approximation: thin features smaller
 than a coarse pixel can be skipped; the tests bound the error.
 """
@@ -24,6 +25,7 @@ from ..config import RenderConfig, replace
 from ..core.flatten import Scene
 from .camera import Camera, ray_directions
 from . import fast
+from .renderer import _build_ray
 
 
 def coarse_depth(scene: Scene, camera: Camera, cfg: RenderConfig, factor: int):
@@ -34,9 +36,11 @@ def coarse_depth(scene: Scene, camera: Camera, cfg: RenderConfig, factor: int):
     _, aux = fast.render_rays_fast(scene, camera.pos, dirs, ccfg)
     p = aux["hit_pos"]
     t = jnp.linalg.norm(p - jnp.asarray(camera.pos)[None, :], axis=1)
-    usable = aux["hit"] & ~aux["reflected"]
-    # sky pixels seed "very far" — min-of-neighborhood keeps edges safe
-    t = jnp.where(usable, t, jnp.where(aux["hit"], 0.0, 1e6))
+    # a ray bent by a material (reflection, or refraction into water or
+    # glass) ends at a t that is no straight-ray depth, hit or not: seed 0
+    straight = jnp.all(aux["ray_dir"] == _build_ray(dirs)[0], axis=1)
+    # straight sky pixels seed "very far" — min-of-neighborhood keeps edges safe
+    t = jnp.where(straight, jnp.where(aux["hit"], t, 1e6), 0.0)
     return t.reshape(h, w)
 
 

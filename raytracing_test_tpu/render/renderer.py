@@ -6,7 +6,7 @@ every per-pixel scalar in the GLSL becomes an [N]-shaped array, GLSL early
 returns become masks, and the unbounded-looking marches become a
 ``lax.while_loop`` with an all-rays-done early exit. The voxel lookup is a
 dense-grid gather (core/flatten.py) instead of the shader's Morton-incremental
-tree descent (low_res.frag:493-532) — identical results, TPU-friendly shape.
+tree descent (low_res.frag:493-532) — identical results, vector-friendly shape.
 
 Feature parity with the reference kernel:
   - Amanatides-Woo DDA march, ref tie-breaking (x strictly smallest, else y<z,

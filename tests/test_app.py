@@ -178,49 +178,72 @@ def test_frame_stats_and_phase_timer(tmp_path, capsys):
         pass
 
 
-def test_session_render_modes():
-    """Every CLI-exposed render mode produces the same scene (fast is the
-    anchor; reference/progressive/spatial/handoff must agree)."""
-    from raytracing_test_tpu.config import RenderConfig
-    from raytracing_test_tpu.app.session import WorldSession
-
-    s = WorldSession(
-        WorldConfig(width=48, length=48, grid_shape=(64, 64, 64)),
-        use_native=False,
-    )
+@pytest.fixture(scope="module")
+def mode_session():
+    s = WorldSession(SMALL, use_native=False)
     s.yaw, s.pitch = 45.0, 25.0
-    rcfg = RenderConfig(width=16, height=16)
-    base = s.render(rcfg, mode="fast")
-    for mode in ("reference", "spatial", "handoff"):
-        img = s.render(rcfg, mode=mode)
-        bad = (np.abs(np.asarray(img) - base) > 1e-6).any(axis=-1)
-        assert bad.mean() <= 0.01, (mode, bad.sum())
-    prog = s.render(rcfg, mode="progressive")
-    assert np.isfinite(prog).all()
+    return s, s.render(RenderConfig(width=16, height=16), mode="fast")
 
 
-def test_session_fused_fallback_on_palette_overflow():
-    """mode='fused' honors core/fused_tables.py's documented fallback: a
-    world whose edits intern material ids beyond the 4-bit fused budget
-    renders via the fast path (with a one-time warning) instead of raising
-    (VERDICT r03 weak #4)."""
-    from raytracing_test_tpu.config import RenderConfig
-    from raytracing_test_tpu.app.session import WorldSession
-    from raytracing_test_tpu.core.types import Block
+@pytest.mark.parametrize(
+    "mode", ["reference", "bricks", "progressive", "spatial", "handoff"])
+def test_session_render_modes(mode_session, mode):
+    """Every CLI-exposed render mode produces the same scene as the fast
+    anchor (progressive within its coarse-seeding bound)."""
+    s, base = mode_session
+    img = np.asarray(s.render(RenderConfig(width=16, height=16), mode=mode))
+    assert img.shape == base.shape and np.isfinite(img).all()
+    atol = 1e-3 if mode == "progressive" else 1e-6
+    bad = (np.abs(img - base) > atol).any(axis=-1)
+    assert bad.mean() <= 0.01, (mode, bad.sum())
 
-    s = WorldSession(
-        WorldConfig(width=48, length=48, grid_shape=(64, 64, 64)),
-        use_native=False,
-    )
-    s.yaw, s.pitch = 45.0, 25.0
-    rcfg = RenderConfig(width=16, height=16)
-    # intern enough distinct palette entries to push max material id > 13
-    for i in range(15):
-        s.tree.put_block((10 + i, 40, 10), Block(0, (i * 1371235) % (1 << 63)), 6)
-    s.sync()
-    assert int(np.asarray(s.scene.mat).max()) > 13
-    img = s.render(rcfg, mode="fused")  # must not raise
-    assert np.isfinite(img).all()
-    assert s._fused_warned
-    base = s.render(rcfg, mode="fast")
-    assert np.allclose(img, base)
+
+@pytest.mark.parametrize("mode", ["fused", "bricks-pallas", "pallas"])
+def test_session_removed_modes_raise(mode_session, mode):
+    """The removed kernel render modes are gone: asking for one is an error, not
+    a silent fallback to another engine."""
+    s, _ = mode_session
+    with pytest.raises(ValueError, match="unknown render mode"):
+        s.render(RenderConfig(width=16, height=16), mode=mode)
+
+
+@pytest.mark.parametrize("argv", [
+    ["render", "--mode", "fused"],
+    ["render", "--mode", "bricks-pallas"],
+    ["render", "--mode", "pallas"],
+    ["fit", "--engine", "fused"],
+])
+def test_cli_rejects_removed_engines(argv, capsys):
+    from raytracing_test_tpu.app import cli
+
+    with pytest.raises(SystemExit) as e:
+        cli.main(argv)
+    assert e.value.code == 2  # argparse usage error
+
+
+def test_cli_fit_flags_route_to_cmd_fit(monkeypatch):
+    """`fit --guided --shading` parses and reaches cmd_fit's args."""
+    from raytracing_test_tpu.app import cli
+
+    seen = {}
+    monkeypatch.setattr(cli, "cmd_fit", lambda args: seen.update(vars(args)))
+    monkeypatch.setattr(
+        "raytracing_test_tpu.utils.compile_cache.enable_compile_cache", lambda: "")
+    cli.main(["fit", "--guided", "--shading", "--steps", "1"])
+    assert seen["guided"] is True and seen["shading"] is True
+    assert seen["steps"] == 1 and "engine" not in seen
+
+
+def test_profiler_trace_failure_raises(monkeypatch, tmp_path):
+    """A profiler that cannot start is an error, never an untraced run."""
+    import jax
+
+    from raytracing_test_tpu.utils import profiling
+
+    def broken(log_dir):
+        raise RuntimeError("profiler unavailable")
+
+    monkeypatch.setattr(jax.profiler, "trace", broken)
+    with pytest.raises(RuntimeError, match="profiler unavailable"):
+        with profiling.trace(str(tmp_path)):
+            pass

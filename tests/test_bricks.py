@@ -86,46 +86,6 @@ def test_bricks_progressive_seed(terrain_scene):
     np.testing.assert_array_equal(np.asarray(cb), np.asarray(cf))
 
 
-@pytest.mark.parametrize("case", CASES, ids=[f"case{i}" for i in range(len(CASES))])
-def test_pallas_kernels_match_fast(mat_scene, case):
-    """Both Pallas kernels (interpret mode) + XLA material glue must be
-    bit-exact vs the fast path — the same contract the compiled kernels are
-    held to on the chip (scripts/verify_on_tpu.py)."""
-    from raytracing_test_tpu.kernels import brick_kernels as bk
-
-    grid, pal, scene = mat_scene
-    pos, dirn, time_s = case
-    rcfg = RenderConfig(width=12, height=12, max_steps=150, shadow_steps=40)
-    cam = Camera(pos=jnp.asarray(pos, jnp.float32), dir=jnp.asarray(dirn, jnp.float32))
-    dirs = ray_directions(cam, rcfg.width, rcfg.height)
-    t = jnp.float32(time_s)
-    cf, af = jax.jit(lambda t: fast.render_rays_fast(scene, cam.pos, dirs, rcfg, time_s=t))(t)
-    cp, ap = jax.jit(
-        lambda t: bk.render_rays_bricks_pallas(
-            scene, cam.pos, dirs, rcfg, interpret=True, time_s=t
-        )
-    )(t)
-    np.testing.assert_array_equal(np.asarray(cp), np.asarray(cf))
-    np.testing.assert_array_equal(np.asarray(ap["mat"]), np.asarray(af["mat"]))
-
-
-def test_pallas_kernels_terrain_exact(terrain_scene):
-    from raytracing_test_tpu.kernels import brick_kernels as bk
-
-    scene = terrain_scene
-    rcfg = RenderConfig(width=24, height=24, max_steps=150, shadow_steps=40)
-    cam = Camera(pos=jnp.asarray([24.0, 45.0, -8.0], jnp.float32),
-                 dir=jnp.asarray([0.25, -0.65, 0.9], jnp.float32))
-    dirs = ray_directions(cam, rcfg.width, rcfg.height)
-    cf, af = jax.jit(lambda: fast.render_rays_fast(scene, cam.pos, dirs, rcfg))()
-    cp, ap = jax.jit(
-        lambda: bk.render_rays_bricks_pallas(scene, cam.pos, dirs, rcfg, interpret=True)
-    )()
-    np.testing.assert_array_equal(np.asarray(cp), np.asarray(cf))
-    np.testing.assert_array_equal(np.asarray(ap["steps"]), np.asarray(af["steps"]))
-    np.testing.assert_array_equal(np.asarray(ap["cell"]), np.asarray(af["cell"]))
-
-
 def test_brick_tables_consistent(terrain_scene):
     """brick_dist licenses must certify genuinely-empty brick boxes, and the
     nibble tables must decode back to brick_dist."""

@@ -61,3 +61,27 @@ def test_spatial_with_materials(world):
         spatial.shard_scene_spatial(scene, mesh), cam, rcfg, mesh
     )
     np.testing.assert_allclose(img, single, atol=1e-6)
+
+
+@pytest.mark.parametrize("kind", ["spatial", "handoff"])
+def test_repeated_frames_reuse_one_executable(world, kind):
+    """A frame loop over a sharded world (session modes spatial/handoff)
+    must not retrace per frame: equal configs and equal meshes share one
+    jitted function, and a new camera is data, not a new program."""
+    from raytracing_test_tpu.parallel import handoff
+
+    render, cached = {
+        "spatial": (spatial.render_image_spatial, spatial._render_spatial_jit),
+        "handoff": (handoff.render_image_handoff, handoff._render_handoff_jit),
+    }[kind]
+    rcfg = RenderConfig(width=16, height=8, enable_ao=False)
+    for i in range(3):
+        mesh = meshlib.make_mesh(1, 4)  # a fresh but equal mesh each frame
+        cam = Camera(
+            pos=jnp.asarray((35.0 + i, 50.0, 35.0), jnp.float32),
+            dir=jnp.asarray((0.6, -0.5, 0.5), jnp.float32),
+        )
+        img = render(spatial.shard_scene_spatial(world, mesh), cam, rcfg, mesh)
+        assert np.isfinite(img).all()
+    fn = cached(rcfg, meshlib.make_mesh(1, 4))
+    assert fn._cache_size() == 1
